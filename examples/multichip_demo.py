@@ -1,10 +1,10 @@
 """Multi-chip scale-out demo: 32 channel pairs analyzed across a device
 mesh through the ShardedAnalysisPipeline.
 
-Runs anywhere: on a CPU-only box it builds an 8-virtual-device mesh
-(pass --tpu to run on real TPU hardware; by default (or with no TPU)); on a pod slice it uses every chip.
+Runs anywhere: by default it builds an 8-virtual-device CPU mesh; pass
+--gpu to shard over every GPU of the host instead.
 
-Usage: python examples/multichip_demo.py [--tpu]
+Usage: python examples/multichip_demo.py [--gpu]
 """
 
 import pathlib
@@ -16,10 +16,9 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 def main():
     import jax
 
-    # --tpu runs on the attached accelerator mesh (a pod slice uses every
-    # chip); default is a local 8-device virtual CPU mesh so the demo runs
-    # anywhere
-    if "--tpu" not in sys.argv:
+    # --gpu runs on the host's GPUs; the default 8-device virtual CPU mesh
+    # lets the demo run anywhere
+    if "--gpu" not in sys.argv:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", 8)
 
@@ -68,7 +67,7 @@ def main():
         px = int(np.argmax(res[p, -1, 0, 0]))
         print(f"  pair {p:2d}: spectral peak at {freqs[px]:7.1f} Hz "
               f"(expected {200.0 * (p + 1):7.1f})")
-    print(f"global peak diagnostic (pmax over ICI): {float(out.global_peak):.3f}")
+    print(f"global peak diagnostic (pmax across the mesh): {float(out.global_peak):.3f}")
 
     # the same pipeline class covers every view — scope views ingest via
     # a rolling ring instead of the frame hopper

@@ -1,10 +1,10 @@
-"""signalizer_tpu — a TPU-native audio analysis & visualization framework.
+"""signalizer_tpu — an accelerator audio analysis & visualization framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 jthorborg/signalizer (reference: /root/reference, v0.4.3): the Spectrum,
 Oscilloscope and Vectorscope analysis engines, the multi-instance audio
 streaming/mixing layer, the parameter system and the versioned state
-serialization — re-designed TPU-first:
+serialization — re-designed for a batched accelerator:
 
 * every DSP core is a batched, jit-compiled function over
   ``[batch, channels, samples]`` frames (the reference's per-channel-pair

@@ -145,7 +145,7 @@ def cmd_analyze(args) -> int:
 def cmd_analyze_batch(args) -> int:
     """Batched offline analysis: every input file becomes one pair of the
     device batch, so N files are analysed in the same dispatches one file
-    would take — the TPU-scaling counterpart of opening N plugin
+    would take — the device-batch counterpart of opening N plugin
     instances (no reference equivalent)."""
     from signalizer_tpu.core.config import (
         BinInterpolation,
@@ -319,6 +319,9 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from signalizer_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -4,7 +4,7 @@ Mirrors the semantics of the reference's configuration layer
 (ref: Source/Config/SignalizerConfiguration.h:47-62 and the channel enums in
 Source/Common/CommonSignalizer.h:458-539) without its C++ typedef machinery.
 
-TPU-first conventions:
+Accelerator conventions:
 * audio on device is ``float32`` (the reference moved its spectrum math to
   32-bit in v0.4.0 for the same reason),
 * parameters on the host are ``float64`` numpy scalars,

@@ -5,7 +5,7 @@ view, per-view editor pages, global render settings, a preset widget and
 the node-graph editor (ref: Source/Editor/MainEditor.{h,cpp} — tab bar
 with auto-hide :68-69, UI pump timer :1387-1423, render settings
 :393-400, serialization :1046-1080; GraphEditor.cpp drag-to-connect
-:625). A JUCE window is GUI scope; the TPU-native rebuild's interactive
+:625). A JUCE window is GUI scope; this rebuild's interactive
 shell is a browser app served by this stdlib HTTP server — the same
 widget taxonomy (pages from :mod:`signalizer_tpu.views.controllers`,
 resolved by :mod:`signalizer_tpu.editor.widgets`), the same tick loop

@@ -2,7 +2,7 @@
 
 The SignalizerDesign kit's job (ref: Source/Common/SignalizerDesign.{h,cpp}
 — ``CContentPage`` icon-tab pages holding ``MatrixSection`` grids that bind
-cpl widgets to parameters, :178-299) split the TPU-native way: the page
+cpl widgets to parameters, :178-299) split this way: the page
 *structure* lives in :mod:`signalizer_tpu.views.controllers` as data, and
 this module resolves each referenced name against a live Content's
 registered parameters into a renderable widget descriptor — kind, current

@@ -1,6 +1,6 @@
 """Spectrogram colour mapping and multi-pair blending.
 
-TPU-native re-design of the reference's spectrogram colour path
+Re-design of the reference's spectrogram colour path
 (ref: Source/Spectrum/SpectrumDSP.cpp:110-206 blendAndDispatchSpectrums).
 Differences by design:
 
@@ -49,13 +49,13 @@ def gradient_map(intensity: jax.Array, colours: jax.Array, ratios: jax.Array) ->
     # segment c such that bounds[c-1] < x <= bounds[c]
     seg = jnp.searchsorted(bounds, x, side="left")
     seg = jnp.clip(seg, 1, ratios.shape[0] - 1)
-    # 6-entry table reads as one-hot dots: TPU element gathers serialize
-    # per element (~6 ns each — T x P of them per spectrogram batch);
-    # six compares + a tiny matmul vectorize instead
+    # 6-entry table reads as one-hot dots: six compares + a tiny matmul
+    # instead of T x P element gathers (chosen on the previous
+    # accelerator; not re-measured on the GPU)
     k = jnp.arange(ratios.shape[0])
     hot_lo = (seg[..., None] - 1) == k  # [..., P, 6]
     hot_hi = seg[..., None] == k
-    # HIGHEST: the MXU's default bf16 multiplication would round the
+    # HIGHEST: a reduced-precision product (bf16 or TF32) would round the
     # bounds to ~2e-3 abs, which (x-lo)/(hi-lo) amplifies to ~10% mix
     # error on narrow gradient segments — visible colour banding
     hp = jax.lax.Precision.HIGHEST

@@ -1,6 +1,6 @@
 """IIR filter kernels: biquads, Linkwitz-Riley crossovers, one-pole smoothers.
 
-TPU-native replacements for cpl's DSP filter classes
+Accelerator replacements for cpl's DSP filter classes
 (ref: cpl/dsp/LinkwitzRileyNetwork.h — 3-band crossover used for the
 oscilloscope's spectral colouring, tuned at OscilloscopeDSP.inl:440;
 cpl/dsp/SmoothedParameterState.h one-pole smoothers; the cpl submodule is
@@ -80,10 +80,10 @@ def _recurrence_scan(A: jax.Array, bx: jax.Array, s0: jax.Array) -> jax.Array:
     def comb(a, b):
         m1, v1 = a
         m2, v2 = b
-        # HIGHEST precision is load-bearing: the TPU's default bf16 matmul
-        # rounds the near-marginal companion matrix (|pole| ~ 0.97 for a
-        # 300 Hz crossover at 48 kHz) past the unit circle, so the scanned
-        # matrix powers explode to inf/NaN (found by tools/tpu_parity_check)
+        # HIGHEST precision is load-bearing: a reduced-precision product
+        # (bf16, or TF32 on the GPU) rounds the near-marginal companion
+        # matrix (|pole| ~ 0.97 for a 300 Hz crossover at 48 kHz) past the
+        # unit circle, so the scanned matrix powers explode to inf/NaN
         hi = jax.lax.Precision.HIGHEST
         return (
             jnp.einsum("w...ij,w...jk->w...ik", m2, m1, precision=hi),

@@ -1,6 +1,6 @@
 """Oscilloscope kernels: triggers, spectral fundamental, resampling.
 
-TPU-native re-design of the reference's oscilloscope DSP
+Re-design of the reference's oscilloscope DSP
 (ref: Source/Oscilloscope/OscilloscopeDSP.inl:61-308 spectral trigger,
 StreamPreprocessing.h:270-349 peak-hold / zero-crossing processors,
 OscilloscopeRendering.cpp:790-891 windowed-sinc pixel resampling).
@@ -11,14 +11,14 @@ Differences by design:
   crossing origin once a later sample exceeds the threshold — equivalently,
   a crossing fires iff any sample before the next crossing exceeds the
   threshold. That's a cummax-between-crossings computation (segment logic),
-  O(1) depth on the VPU.
+  O(log W) depth of elementwise shifts and selects.
 * **Peak-hold keeps its sequential scan** (`lax.scan`): its decaying
   envelope carry is genuinely order-dependent.
 * **The spectral fundamental search** precomputes the complex quadratic
   bin-offset interpolation for *all* bins vectorized, then runs the
   candidate/hysteresis/harmonic-rejection walk as a `lax.scan` over bins
   with a 3-scalar carry.
-* **Sinc resampling** becomes a dynamic gather + on-device Lanczos weight
+* **Sinc resampling** becomes a per-tap gather + on-device Lanczos weight
   evaluation over all output pixels at once (the reference fills a rolling
   21-tap kernel buffer per pixel).
 """
@@ -57,9 +57,9 @@ def zero_crossing_triggers(x: jax.Array, threshold: float) -> jax.Array:
     hot = x > threshold
     # a crossing fires iff its segment [origin, next origin) contains a
     # hot sample — a segmented suffix-OR. Computed as a log-depth reset
-    # scan over the reversed axis (pure shifts/selects on the VPU) rather
-    # than segment_max + take_along_axis: TPU scatters/gathers serialize
-    # per element (see _banded_resample's note).
+    # scan over the reversed axis (pure shifts/selects) rather than
+    # segment_max + take_along_axis; the formulation was chosen for the
+    # previous accelerator and is not re-measured on the GPU yet.
     w = x.shape[-1]
     hr = jnp.flip(hot, -1)
     cr = jnp.flip(crossing, -1)
@@ -237,7 +237,7 @@ def spectral_fundamental(
     # each accepted value must exceed 2x the previous, so float32's full
     # dynamic range (smallest subnormal 2^-149 -> f32 max 2^128) bounds
     # the chain at <= 277 doublings — the loop runs ~chain-length
-    # iterations of [batch, M] VPU work rather than N/2 dependent steps
+    # iterations of [batch, M] vector work rather than N/2 dependent steps
     # of scalar-carry work.
     # Semantics identical to the reference's per-bin loop
     # (OscilloscopeDSP.inl:134-184).
@@ -314,8 +314,8 @@ def median_record_filter(
 def goertzel(x: jax.Array, radians: jax.Array) -> jax.Array:
     """Single-frequency DFT correlate: sum x[n] e^{-i r n}
     (ref: cpl dsp::goertzel usage at OscilloscopeDSP.inl:277). The classic
-    recursive Goertzel saves multiplies on a CPU; on TPU the direct complex
-    dot product is a single fused reduce."""
+    recursive Goertzel saves multiplies on a CPU; on an accelerator the
+    direct complex dot product is a single fused reduce."""
     n = x.shape[-1]
     k = jnp.arange(n, dtype=x.dtype)
     phases = radians[..., None] * k
@@ -385,15 +385,11 @@ def sinc_resample(
     x [..., W]; output pixel p samples position start + p*step. Edge taps
     clamp to the frame. Returns [..., num_out].
 
-    TPU note: the taps of one output pixel are CONTIGUOUS source samples,
-    so this fetches one ``dynamic_slice``-style window per pixel (a
-    sliced gather the TPU can DMA) instead of 2a scattered elements per
-    pixel — the scattered ``take_along_axis`` formulation serialized at
-    ~1 element/cycle and dominated the whole oscilloscope step (measured
-    ~33 ms/step at 8192 px x 16 pairs; bisected round 3). Weights are
-    evaluated for every window slot; slots outside the +-a kernel
-    support get exactly zero, and edge-padding with the boundary sample
-    reproduces the reference's tap clamping.
+    Per-tap gather: each output pixel reads its 2a source taps and
+    weights them in the same fused loop, so no weight grid is written to
+    device memory. Measured on the GPU against block-banded matmul forms
+    at the oscilloscope geometries, the gather was the fastest (see
+    PERF.md), and it is exact for any step.
     """
     a = kernel_size
     w = x.shape[-1]
@@ -402,137 +398,8 @@ def sinc_resample(
     step = jnp.asarray(step, jnp.float32)
     pos = start[..., None] + p * step[..., None]  # [..., P]
     # tap-clip equivalence holds for positions up to a kernel radius
-    # outside the frame (the processor clamps its window into the frame;
-    # positions further out would need unbounded padding)
+    # outside the frame (the processor clamps its window into the frame)
     pos = jnp.clip(pos, -(a + 1.0), w - 1.0 + a)
-    return _banded_dispatch(
-        x, pos, step, num_out, a, "lanczos", lambda: _sinc_gather(x, pos, a)
-    )
-
-
-def sinc_resample_with_nearest(
-    x: jax.Array,
-    start,
-    step,
-    num_out: int,
-    kernel_size: int = INTERPOLATION_KERNEL_SIZE,
-) -> Tuple[jax.Array, jax.Array]:
-    """Lanczos wave + nearest-sample pick at the SAME pixel positions.
-
-    One fused Pallas pass when the TPU kernel covers the geometry — the
-    oscilloscope step's min-max envelope source when env_os == 1 paid a
-    second full banded traversal (band DMA + t-grid) for weights that
-    are two compares on the sinc pass's already-evaluated t-grid
-    (round-4 verdict #5). Falls back to the two independent resamples
-    (identical formulas, so identical results) off-TPU or when the
-    window cannot cover the step."""
-    a = kernel_size
-    w = x.shape[-1]
-    p = jnp.arange(num_out, dtype=jnp.float32)
-    start = jnp.asarray(start, jnp.float32)
-    step = jnp.asarray(step, jnp.float32)
-    pos = jnp.clip(
-        start[..., None] + p * step[..., None], -(a + 1.0), w - 1.0 + a
-    )
-
-    def separate():
-        return (
-            sinc_resample(x, start, step, num_out, a),
-            nearest_resample(x, start, step, num_out),
-        )
-
-    from signalizer_tpu.kernels.pallas_resample import (
-        covers,
-        fused_banded_resample,
-        pallas_resample_supported,
-    )
-
-    if (
-        jax.default_backend() != "cpu"
-        and pallas_resample_supported()
-        and num_out % _BAND_BLOCK == 0
-        and x.ndim == 3
-        and pos.ndim == 3
-        and pos.shape[:2] == (x.shape[0], 1)
-        and x.dtype == jnp.float32
-    ):
-        return jax.lax.cond(
-            covers(jnp.max(step), a),
-            lambda: fused_banded_resample(
-                x, pos[:, 0, :], a=a, kind="lanczos", with_nearest=True
-            ),
-            separate,
-        )
-    return separate()
-
-
-_BAND_BLOCK = 128  # pixels per band block
-_BAND_NARROW = 64  # band width for step <= ~0.33 (e.g. the 8x upsample)
-_BAND_WIDE = 256  # band width for step <= ~1.84
-
-
-def _banded_dispatch(x, pos, step, num_out, support, kind, gather_fallback):
-    """Route a fractional resample to the fastest exact formulation:
-    the fused Pallas kernel on TPU (3.1x the XLA band path at cfg3 —
-    kernels/pallas_resample.py), else the narrowest XLA band, falling
-    back to the per-tap gather for deep zoom-out. All formulations are
-    exact — only the access pattern differs.
-
-    On CPU the per-tap gather wins outright: the band/matmul forms exist
-    because TPU serializes scattered gathers at ~1 element/cycle and has
-    an MXU to feed — XLA:CPU has neither, vectorizes gathers well, and
-    pays the full dense band dot (measured: the session-geometry min-max
-    envelope costs 0.50 ms banded vs ~10 us gathered on the 1-core box).
-    The nearest-kind gather uses the same ties-upward rounding as the
-    banded branch, so this routing is bit-stable for display sampling."""
-    if jax.default_backend() == "cpu":
-        return gather_fallback()
-    if num_out % _BAND_BLOCK != 0:
-        return gather_fallback()
-    max_step = jnp.max(jnp.asarray(step, jnp.float32))
-
-    def fits(width):
-        return (max_step * (_BAND_BLOCK - 1) + 2 * support + 2) <= width
-
-    def xla_chain():
-        return jax.lax.cond(
-            fits(_BAND_NARROW),
-            lambda: _banded_resample(x, pos, support, _BAND_NARROW, kind),
-            lambda: jax.lax.cond(
-                fits(_BAND_WIDE),
-                lambda: _banded_resample(x, pos, support, _BAND_WIDE, kind),
-                gather_fallback,
-            ),
-        )
-
-    from signalizer_tpu.kernels.pallas_resample import (
-        covers,
-        fused_banded_resample,
-        pallas_resample_supported,
-    )
-
-    # the fused kernel handles the osc step's [pairs, rows, W] x
-    # [pairs, 1, P] shape (positions shared across display rows)
-    if (
-        pallas_resample_supported()
-        and x.ndim == 3
-        and pos.ndim == 3
-        and pos.shape[:2] == (x.shape[0], 1)
-        and x.dtype == jnp.float32
-    ):
-        return jax.lax.cond(
-            covers(max_step, support),
-            lambda: fused_banded_resample(x, pos[:, 0, :], a=support, kind=kind),
-            xla_chain,
-        )
-    return xla_chain()
-
-
-def _sinc_gather(x: jax.Array, pos: jax.Array, a: int) -> jax.Array:
-    """Per-tap element gather (exact for any step; TPU gathers serialize
-    at ~1 element/cycle, so this is the slow path reserved for deep
-    zoom-out where the band windows cannot cover a block's span)."""
-    w = x.shape[-1]
     i0 = jnp.floor(pos)
     offs = jnp.arange(-a + 1, a + 1, dtype=jnp.float32)  # 2a taps
     tap_pos = i0[..., None] + offs  # [..., num_out, 2a]
@@ -540,110 +407,7 @@ def _sinc_gather(x: jax.Array, pos: jax.Array, a: int) -> jax.Array:
     sinc = jnp.sinc(t) * jnp.sinc(t / a)
     weights = jnp.where(jnp.abs(t) < a, sinc, 0.0)
     idx = jnp.clip(tap_pos.astype(jnp.int32), 0, w - 1)
-    gathered = _gather_last(x, idx)
-    return jnp.sum(gathered * weights, axis=-1)
-
-
-def _banded_resample(
-    x: jax.Array, pos: jax.Array, a: int, width: int, kind: str = "lanczos"
-) -> jax.Array:
-    """Block-banded MXU formulation (exact when every block's tap span
-    fits the band: step <= (width - 2a - 2) / (block - 1)).
-
-    ``kind``: the interpolation kernel evaluated on the band grid —
-    "lanczos" (support a), "linear" (triangular, a = 1), or "nearest"
-    (a one-hot at round(pos), a = 1).
-
-    The taps of neighbouring pixels overlap almost entirely, so a block
-    of 128 consecutive output pixels reads one CONTIGUOUS source band of
-    <= width samples. Extract one band per block (a few thousand gathered
-    elements instead of P x 2a scattered ones — the scattered form
-    measured 33 ms/step at 8192 px x 16 pairs), evaluate the dense
-    [block, width] Lanczos weight grid on the VPU (slots outside the
-    +-a support are exactly zero), and contract band x weights on the
-    MXU. Edge behaviour matches the per-tap clip via edge padding.
-
-    ``pos``'s batch may be a broadcastable prefix of ``x``'s (the osc
-    step shares positions across its display rows): the weight grid is
-    built on pos's TRUE batch and broadcasts through the contraction —
-    it is the big intermediate, so never expand it.
-    """
-    w = x.shape[-1]
-    nb = pos.shape[-1] // _BAND_BLOCK
-    pos_b = pos.reshape(pos.shape[:-1] + (nb, _BAND_BLOCK))
-    # band start = first tap of the block's first pixel
-    base = jnp.floor(pos_b[..., 0]) - (a - 1)  # [pB..., nb]
-    # slack: positions may legally sit a kernel radius outside the frame
-    # (see sinc_resample's clip); edge padding there == per-tap clipping
-    pad_l = 2 * a + 2
-    pad_r = width + a
-    xp = jnp.concatenate(
-        [
-            jnp.repeat(x[..., :1], pad_l, axis=-1),
-            x,
-            jnp.repeat(x[..., -1:], pad_r, axis=-1),
-        ],
-        axis=-1,
-    )
-    s0 = jnp.clip(
-        (base + pad_l).astype(jnp.int32), 0, w + pad_l + pad_r - width
-    )  # [pB..., nb]
-    # band extraction: one contiguous window per block via an element
-    # gather of nb x width indices (tiny vs per-tap gathering); the index
-    # batch broadcasts against x's batch
-    idx = s0[..., None] + jnp.arange(width)  # [pB..., nb, width]
-    flat = idx.reshape(idx.shape[:-2] + (-1,))
-    flat = jnp.broadcast_to(flat, x.shape[:-1] + flat.shape[-1:])
-    bands = jnp.take_along_axis(xp, flat, axis=-1).reshape(
-        x.shape[:-1] + (nb, width)
-    )
-    # weight grid: slot j of block b holds source position s0_b-pad_l+j.
-    # lanczos(t) = a sin(pi t) sin(pi t / a) / (pi t)^2 with t = pos - src
-    # and src INTEGER, so both sines separate into 1-D transcendentals
-    # (sin(pi(pos-src)) = (-1)^src sin(pi pos); the /a factor by the
-    # angle-difference identity) — the [block x width] grid is then pure
-    # cheap rational ops instead of ~2 sinc evaluations per cell (tens of
-    # millions per step at 8192 px)
-    src = s0[..., None].astype(jnp.float32) - pad_l + jnp.arange(
-        width, dtype=jnp.float32
-    )  # [pB..., nb, width]
-    t = pos_b[..., None] - src[..., None, :]  # [pB..., nb, block, width]
-    if kind == "lanczos":
-        # arguments reduced modulo the period BEFORE the f32 sine —
-        # sin(pi x) at x ~ 1e4 loses ~1e-3 absolute to argument-reduction
-        # error, and the mod-subtraction is exact here (integer grids
-        # < 2^24, Sterbenz)
-        sp = jnp.sin(jnp.pi * jnp.mod(pos_b, 2.0))  # [pB..., nb, block]
-        spa = jnp.sin(jnp.pi * jnp.mod(pos_b, 2.0 * a) / a)
-        cpa = jnp.cos(jnp.pi * jnp.mod(pos_b, 2.0 * a) / a)
-        sgn = 1.0 - 2.0 * jnp.mod(jnp.abs(src), 2.0)  # (-1)^src
-        csa = jnp.cos(jnp.pi * jnp.mod(src, 2.0 * a) / a)
-        ssa = jnp.sin(jnp.pi * jnp.mod(src, 2.0 * a) / a)
-        sin_t = sgn[..., None, :] * sp[..., :, None]
-        sin_ta = (
-            spa[..., :, None] * csa[..., None, :] - cpa[..., :, None] * ssa[..., None, :]
-        )
-        near0 = jnp.abs(t) < 1e-6
-        denom = jnp.where(near0, 1.0, t * t)
-        weights = jnp.where(
-            near0, 1.0, a * sin_t * sin_ta / (jnp.pi * jnp.pi * denom)
-        )
-        weights = jnp.where(jnp.abs(t) < a, weights, 0.0)
-    elif kind == "linear":
-        weights = jnp.maximum(0.0, 1.0 - jnp.abs(t))
-    elif kind == "nearest":
-        # one-hot at round(pos): t in [-0.5, 0.5) — ties round up like
-        # jnp.round-to-nearest on the .5 grid the gather paths use
-        weights = ((t >= -0.5) & (t < 0.5)).astype(x.dtype)
-    else:  # pragma: no cover
-        raise ValueError(kind)
-    out = jnp.einsum(
-        "...nkw,...nw->...nk",
-        weights,
-        bands,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # [B..., nb, block] with B = broadcast(pos batch, x batch)
-    return out.reshape(out.shape[:-2] + (nb * _BAND_BLOCK,))
+    return jnp.sum(_gather_last(x, idx) * weights, axis=-1)
 
 
 def _gather_last(x: jax.Array, idx: jax.Array) -> jax.Array:
@@ -655,48 +419,31 @@ def _gather_last(x: jax.Array, idx: jax.Array) -> jax.Array:
 
 
 def linear_resample(x: jax.Array, start, step, num_out: int) -> jax.Array:
-    """2-tap linear variant (ref: SubSampleInterpolation::Linear path).
-    Same block-banded access pattern as the Lanczos path (scattered
-    2-tap gathers still cost ~ms at display widths)."""
+    """2-tap linear variant (ref: SubSampleInterpolation::Linear path)."""
     w = x.shape[-1]
     p = jnp.arange(num_out, dtype=jnp.float32)
     start = jnp.asarray(start, jnp.float32)
     step = jnp.asarray(step, jnp.float32)
     pos = start[..., None] + p * step[..., None]
     pos = jnp.clip(pos, -2.0, w * 1.0)
-
-    def gather():
-        i0 = jnp.floor(pos)
-        frac = pos - i0
-        idx = jnp.stack([i0, i0 + 1], axis=-1).astype(jnp.int32)
-        idx = jnp.clip(idx, 0, w - 1)
-        g = _gather_last(x, idx)
-        return g[..., 0] * (1 - frac) + g[..., 1] * frac
-
-    return _banded_dispatch(x, pos, step, num_out, 1, "linear", gather)
+    i0 = jnp.floor(pos)
+    frac = pos - i0
+    idx = jnp.stack([i0, i0 + 1], axis=-1).astype(jnp.int32)
+    g = _gather_last(x, jnp.clip(idx, 0, w - 1))
+    return g[..., 0] * (1 - frac) + g[..., 1] * frac
 
 
 def nearest_resample(x: jax.Array, start, step, num_out: int) -> jax.Array:
     """Nearest-sample pick (ref: SubSampleInterpolation::None /
-    Rectangular). Banded like the other kernels; both branches resolve
-    exact .5 ties upward (floor(pos + 0.5)), so the CPU-gather and
-    TPU-banded routes agree bit-for-bit."""
+    Rectangular); exact .5 ties resolve upward (floor(pos + 0.5))."""
     w = x.shape[-1]
     p = jnp.arange(num_out, dtype=jnp.float32)
     start = jnp.asarray(start, jnp.float32)
     step = jnp.asarray(step, jnp.float32)
     pos = start[..., None] + p * step[..., None]
     pos = jnp.clip(pos, -1.0, w * 1.0)
-
-    def gather():
-        idx = jnp.clip(jnp.floor(pos + 0.5).astype(jnp.int32), 0, w - 1)
-        bidx = jnp.broadcast_to(
-            idx, jnp.broadcast_shapes(x.shape[:-1], idx.shape[:-1]) + (num_out,)
-        )
-        xb = jnp.broadcast_to(x, bidx.shape[:-1] + (w,))
-        return jnp.take_along_axis(xb, bidx, axis=-1)
-
-    return _banded_dispatch(x, pos, step, num_out, 1, "nearest", gather)
+    idx = jnp.clip(jnp.floor(pos + 0.5).astype(jnp.int32), 0, w - 1)
+    return _gather_last(x, idx[..., None])[..., 0]
 
 
 def minmax_decimate(x: jax.Array, num_out: int) -> Tuple[jax.Array, jax.Array]:
@@ -704,7 +451,7 @@ def minmax_decimate(x: jax.Array, num_out: int) -> Tuple[jax.Array, jax.Array]:
     [..., num_out], pixel p reducing samples [p*W/P, (p+1)*W/P).
 
     The reference renders rectangular line strips in sample space when
-    zoomed out; on TPU we reduce to per-pixel envelopes so the vertex count
+    zoomed out; here we reduce to per-pixel envelopes so the vertex count
     stays bounded by the display width (BASELINE config 3)."""
     w = x.shape[-1]
     if w % num_out == 0:
@@ -748,7 +495,10 @@ def spectral_colour_track(
 
     sq = bands * bands  # [..., 3, W]
     smoothed = onepole_smooth(sq, smooth_pole, smooth_state)  # [..., 3, W]
-    rgb = jnp.einsum("...bw,bc->...wc", smoothed, band_colours)  # [..., W, 3]
+    rgb = jnp.einsum(
+        "...bw,bc->...wc", smoothed, band_colours,
+        precision=jax.lax.Precision.HIGHEST,
+    )  # [..., W, 3]
     peak = jnp.max(rgb, axis=-1, keepdims=True)
     rgb = rgb / jnp.maximum(peak, 1e-20)
     rgb = jnp.where(peak > 0, rgb, 0.0)
@@ -767,9 +517,7 @@ def sinc_resample_matrix(
     *static* positions (host-side, once per configuration).
 
     For a fixed pixel grid the windowed-sinc resample is a constant linear
-    map, so on TPU it should be an MXU matmul instead of a dynamic gather —
-    measured 9x faster in fused pipelines where the gather otherwise
-    schedules pathologically against the FFT (see bench cfg5).
+    map, applied as one matmul (bench cfg5's fused step uses it).
     """
     import numpy as np
 
@@ -792,9 +540,8 @@ def sinc_resample_matrix(
 def sinc_resample_static(x: jax.Array, matrix: jax.Array) -> jax.Array:
     """Apply a precomputed resample matrix: x [..., W] @ [W, P] -> [..., P].
 
-    Full f32 precision: the MXU's default bf16 accumulation costs ~-36 dB
-    error, audible as waveform fuzz; HIGHEST keeps the resample exact to
-    float32 (still 7x faster than the dynamic gather in fused programs).
+    Full f32 precision: a reduced-precision product (bf16 or TF32) costs
+    visible waveform fuzz; HIGHEST keeps the resample exact to float32.
     """
     return jnp.einsum(
         "...w,wp->...p", x, matrix, precision=jax.lax.Precision.HIGHEST

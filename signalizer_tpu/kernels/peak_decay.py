@@ -5,7 +5,7 @@ Source/Spectrum/TransformDSP.inl:1336-1341) is the recurrence
 
     state[t] = max(pole * state[t-1], x[t])
 
-— sequential in time, parallel across pixels/graphs/streams. On TPU we
+— sequential in time, parallel across pixels/graphs/streams. On the accelerator we
 exploit that this is a max-plus linear recurrence: with elements
 ``(p, v)`` and the associative combine ``(p1,v1) o (p2,v2) =
 (p1*p2, max(v1*p2, v2))`` the whole T-frame history evaluates in

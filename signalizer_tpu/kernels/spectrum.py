@@ -1,6 +1,6 @@
 """Spectrum analysis kernels: window -> FFT -> magnitude -> pixel remap -> dB.
 
-TPU-native re-design of the reference's spectrum DSP core
+Re-design of the reference's spectrum DSP core
 (ref: Source/Spectrum/TransformDSP.inl — prepareTransform :38-231,
 doTransform :486-502, mapToLinearSpace :504-1135,
 mapAndTransformDFTFilters :1297-1435). Differences by design:
@@ -37,7 +37,6 @@ replicate.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
 import jax
@@ -142,59 +141,12 @@ def _pack_channels(constant: SpectrumConstant, frames: jax.Array) -> jax.Array:
     return rows * w
 
 
-def _use_mxu(constant: SpectrumConstant) -> bool:
-    """MXU four-step FFT routing — a STATIC field of the Constant
-    (``fft_backend``), resolved once at construction: the honest
-    scan-slope rematch at the headline geometry (N=4096, 4096
-    transforms, round 3) measured 1.83 ms vs XLA's 2.64 ms (1.44x) at
-    BETTER accuracy (1.1e-7 vs 3.7e-7 relative against float64 numpy),
-    so TPU constants default to "mxu"; CPU keeps jnp.fft (the matmul
-    formulation trades ~20x FLOPs for MXU throughput — a loss on scalar
-    pipelines). ``SIGNALIZER_TPU_NO_MXU_FFT=1`` (snapshotted at import
-    of core.constant) or ``fft_backend="xla"`` opts out."""
-    return constant.fft_backend == "mxu"
-
-
-@functools.lru_cache(maxsize=None)
-def _mxu_plan(n: int):
-    from signalizer_tpu.kernels.mxu_fft import make_plan
-
-    return make_plan(n)
-
-
-def _fft_precision(constant: SpectrumConstant):
-    """VALUE-path FFT matmul precision — a static Constant field ("high"
-    bf16x3 default: measured 8.4% faster than "highest" at 2.2e-5 maxrel on
-    chip — see SpectrumConstant.fft_precision). Applies to every channel
-    configuration, Complex included. Recurrence einsums elsewhere stay
-    HIGHEST unconditionally (the CLAUDE.md pole gotcha)."""
-    return {
-        "highest": jax.lax.Precision.HIGHEST,
-        "high": jax.lax.Precision.HIGH,
-        "bf16": jax.lax.Precision.DEFAULT,
-    }[constant.fft_precision]
-
-
 def _half_spectrum(constant: SpectrumConstant, rows: jax.Array) -> jax.Array:
     """Windowed rows [..., W] -> rFFT bins [..., N/2+1] complex, zero-padded
     to transform_size, with DC and Nyquist halved
     (ref: TransformDSP.inl:551-554 — the one-sided display convention)."""
     n = constant.transform_size
-    if _use_mxu(constant):
-        from signalizer_tpu.kernels.mxu_fft import mxu_rfft_half
-
-        pad = n - rows.shape[-1]
-        xr = (
-            jnp.pad(rows, [(0, 0)] * (rows.ndim - 1) + [(0, pad)])
-            if pad
-            else rows
-        )
-        re, im = mxu_rfft_half(
-            _mxu_plan(n), xr, precision=_fft_precision(constant)
-        )
-        spec = jax.lax.complex(re, im)
-    else:
-        spec = jnp.fft.rfft(rows, n=n, axis=-1)
+    spec = jnp.fft.rfft(rows, n=n, axis=-1)
     nb = n // 2
     scale = jnp.ones(nb + 1, dtype=rows.dtype).at[0].set(0.5).at[nb].set(0.5)
     return spec * scale
@@ -227,7 +179,7 @@ def _segment_reduce(data: jax.Array, constant: SpectrumConstant, op: str) -> jax
     flat = data.reshape((-1, data.shape[-1])).T  # [n_values, B]
     # segment_ids are NOT sorted: interpolation-region bins keep the
     # sentinel id P ahead of smaller bin-max pixel ids, so asserting
-    # sortedness would be undefined behavior on TPU.
+    # sortedness would be undefined behavior on an accelerator backend.
     fn = jax.ops.segment_max if op == "max" else jax.ops.segment_min
     seg = fn(flat, constant.segment_ids, num_segments=p + 1, indices_are_sorted=False)
     return seg[:p].T.reshape(batch_shape + (p,))
@@ -238,11 +190,10 @@ def _remap(constant: SpectrumConstant) -> str:
     (``remap_mode``, resolved at construction): ``gather`` (default —
     tap gather + scatter segment-max), ``banded`` (constant-index
     contiguous banded gather + masked max), ``matmul`` (tap
-    interpolation as one dense MXU matmul), ``both``. The candidates are
+    interpolation as one dense matmul), ``both``. The candidates are
     float-equivalent (same taps/chunks, matmul reorders the tap sum);
-    the round-4 chip A/B (tools/remap_bench.py, headline geometry)
-    measured gather 0.336 us/frame vs matmul 0.548 / banded 0.926 /
-    both 0.717 — the scatter default stays."""
+    ``tools/remap_bench.py`` times them at the headline geometry. On the
+    GPU the choice is not measured yet."""
     return constant.remap_mode
 
 
@@ -266,8 +217,8 @@ def _binmax_mag(mags: jax.Array, constant: SpectrumConstant) -> jax.Array:
 
 def _interp_mag(mags: jax.Array, constant: SpectrumConstant) -> jax.Array:
     """Magnitude interpolation with the |.| rectification applied (the
-    Lanczos kernel has negative lobes); routes the tap sum onto the MXU
-    as one dense matmul when the matmul candidate is active."""
+    Lanczos kernel has negative lobes); routes the tap sum through one
+    dense matmul when the matmul candidate is active."""
     if _remap(constant) in ("matmul", "both"):
         if constant.interp_dense is None:
             # only make_spectrum_constant builds the dense matrix;
@@ -333,24 +284,7 @@ def spectrum_values(constant: SpectrumConstant, frames: jax.Array) -> jax.Array:
     if cfg == SpectrumChannels.COMPLEX:
         z = _pack_channels(constant, frames)  # [..., W] complex
         n = constant.transform_size
-        if _use_mxu(constant):
-            from signalizer_tpu.kernels.mxu_fft import mxu_fft
-
-            pad = n - z.shape[-1]
-            zp = (
-                jnp.pad(z, [(0, 0)] * (z.ndim - 1) + [(0, pad)])
-                if pad
-                else z
-            )
-            re, im = mxu_fft(
-                _mxu_plan(n),
-                jnp.real(zp),
-                jnp.imag(zp),
-                precision=_fft_precision(constant),
-            )
-            spec = jax.lax.complex(re, im)
-        else:
-            spec = jnp.fft.fft(z, n=n, axis=-1)
+        spec = jnp.fft.fft(z, n=n, axis=-1)
         mags = jnp.abs(spec)  # [..., N] — full circle, no DC/Nyq halving
         # interpolate MAGNITUDES: the reference abs()'s every csf cell
         # BEFORE its interpolation loops (`csf[i] = std::abs(csf[i])`,
@@ -447,12 +381,11 @@ def _log_decay_db(
     Semantics identical (within float rounding) to
     ``_db_map(constant, peak_decay_scan(mag_state, vals[...,None,:,:], poles))``
     — the reference chain TransformDSP.inl:1336-1341 (CPeakFilter) +
-    :1308-1346 (dB map). Motivation (round-5 roofline, docs/ROUND5.md §8):
-    the linear-domain stage is 1.15 µs/frame — 49% of the headline step —
-    because the associative scan carries TWO arrays (running pole product
-    + decayed value, two multiplies + max per combine) over the full
-    ``[T, K, rows, P]`` broadcast, and ``_db_map`` then takes a log per
-    *output* element. In log space the recurrence
+    :1308-1346 (dB map). Motivation: the linear-domain associative scan
+    carries TWO arrays (running pole product + decayed value, two
+    multiplies + max per combine) over the full ``[T, K, rows, P]``
+    broadcast, and ``_db_map`` then takes a log per *output* element.
+    In log space the recurrence
     ``s[t] = max(pole * s[t-1], x[t])`` becomes the max-plus form
     ``ls[t] = max(lp + ls[t-1], lx[t])``, whose scan solution is a plain
     running max of the tilted sequence ``u[t] = lx[t] - L[t]``
@@ -534,15 +467,11 @@ def post_process(
     slice them off).
 
     ``decay_domain``: ``"auto"`` (default) runs the stage in log domain for
-    T >= ``_LOG_DECAY_MIN_T`` — 1.48x the whole headline step on chip
-    (docs/ROUND5.md §9). ``"linear"`` forces the linear associative scan:
-    measured on chip (round 5, tools-level A/B), a downstream
-    ``spectrogram_columns`` consumer runs 2.6 us/frame SLOWER after the
-    log form (168k vs 469k f/s on the full cfg4 spectrogram step) for
-    reasons invisible to HLO structure, cost analysis, VMEM assignment,
-    or any local probe (optimization_barrier, scan axis, dot form, finite
-    sentinels — all measured no-ops); colormap-consuming surfaces route
-    here explicitly. ``"log"`` forces the log form regardless of T.
+    T >= ``_LOG_DECAY_MIN_T``. ``"linear"`` forces the linear associative
+    scan; the colormap-consuming surfaces (spectrogram family) route here
+    explicitly, a choice made on the previous accelerator and not yet
+    re-measured on the GPU (see ROADMAP). ``"log"`` forces the log form
+    regardless of T.
     """
     poles = constant.decay_poles  # [K]
     # [..., T, K, rows, P]

@@ -1,4 +1,4 @@
-"""Multi-chip scaling: mesh construction and sharded analysis steps.
+"""Multi-device scaling: mesh construction and sharded analysis steps.
 
 The framework's parallelism story (SURVEY.md §2.10/§5.8): the reference's
 concurrency is (a) a thread pool over channel pairs and (b) an in-process
@@ -11,8 +11,12 @@ over streams/pixels), so the scaling layout is:
 * every Constant leaf replicated,
 * per-pair filter states sharded with their frames (state stays resident
   on its chip across steps — no per-step collectives at all),
-* diagnostics reductions (global peak, levels) ride ICI via ``psum``/
-  ``pmax`` inside ``shard_map``.
+* diagnostics reductions (global peak, levels) are ``psum``/``pmax``
+  collectives inside ``shard_map``.
+
+The mesh is one flat axis over ``jax.devices()``: the layout follows the
+algorithm alone, which suits cards that all reach each other at the same
+rate (NVLink all to all on a four-GPU host).
 """
 
 from __future__ import annotations
@@ -77,7 +81,7 @@ def sharded_spectrum_step(
     def shard_fn(state: LineGraphState, frames: jax.Array, valid: jax.Array):
         result = analyze_frames(constant, state, frames, valid=valid)
         local_peak = jnp.max(result.results)
-        peak = jax.lax.pmax(local_peak, axis)  # rides ICI
+        peak = jax.lax.pmax(local_peak, axis)
         return result.results, result.state, peak
 
     mapped = _shard_map(
@@ -100,7 +104,7 @@ def global_peak_level(results: jax.Array) -> jax.Array:
 
 
 def sharded_mix_step(mesh: Mesh, axis: str = "data", max_channels: int = 16):
-    """The multi-instance mix gather as an ICI collective
+    """The multi-instance mix gather as a mesh collective
     (ref: MixGraphListener::deliver's ring-gather into a ChannelMatrix,
     MixGraphListener.cpp:247-334 — SURVEY.md §5.8 identifies it as an
     all-gather with clock synchronization; clock alignment stays on the
@@ -128,8 +132,9 @@ def sharded_mix_step(mesh: Mesh, axis: str = "data", max_channels: int = 16):
                 f"routing out_ch ({routing.shape[-1]}) exceeds "
                 f"max_channels ({max_channels})"
             )
-        # local partial mix on this chip's sources; HIGHEST keeps the
-        # audio sum in f32 (TPU matmul defaults to bf16 rounding)
+        # local partial mix on this device's sources; HIGHEST keeps the
+        # audio sum in f32 (a default-precision product may round to
+        # bf16 or TF32)
         partial = jnp.einsum(
             "sct,sco->ot", sources, routing, precision=jax.lax.Precision.HIGHEST
         )
@@ -163,7 +168,7 @@ def sharded_oscilloscope_step(constant, mesh: Mesh, axis: str = "data",
     Returns ``step(state, history, window, transport, new_samples) ->
     (frame, new_state, global_level)`` with state/history/frame sharded on
     their leading pairs axis (state stays chip-resident across steps) and
-    a ``pmax`` level diagnostic riding ICI.
+    a ``pmax`` level diagnostic across the mesh.
 
     ``pairs``: total pair count across the mesh; when given, pairs beyond
     the first draw with hue-rotated key colours exactly like the
@@ -260,9 +265,8 @@ def sharded_spectrogram_step(constant: SpectrumConstant, mesh: Mesh, axis: str =
     spec_b = P(axis)
 
     def shard_fn(state: LineGraphState, frames, colours, ratios, valid):
-        # linear decay: the colour map downstream runs 2.6 us/frame slower
-        # composed after the log-domain form (round-5 chip A/B; matches the
-        # single-device spectrogram step so the blend parity stays exact)
+        # linear decay, matching the single-device spectrogram step so the
+        # blend parity stays exact (views/spectrogram.py on the routing)
         result = analyze_frames(
             constant, state, frames, valid=valid, decay_domain="linear"
         )
@@ -273,7 +277,7 @@ def sharded_spectrogram_step(constant: SpectrumConstant, mesh: Mesh, axis: str =
         # blend_pairs computes 1 - prod(1 - c) over pairs; the product over
         # all pairs factors into per-chip partial products + one psum-style
         # all-reduce (log-domain sum or direct product via all_gather —
-        # prod reduces over ICI as exp(psum(log))); use the numerically
+        # prod reduces as exp(psum(log))); use the numerically
         # safe direct form: psum of log1p(-c) with clamping.
         one_minus = jnp.clip(1.0 - rgb, 1e-7, 1.0)
         local_log = jnp.sum(jnp.log(one_minus), axis=0)  # [T, P, 3]
@@ -364,7 +368,7 @@ def sharded_resonator_step(
     """The RSNT production tick over a device mesh: each chip's pairs
     shard runs mix -> scanned resonate -> windowed readout -> decay+dB
     entirely chip-resident (the bank state [pairs, rows, P, V, 2] never
-    leaves its shard), with one pmax diagnostic riding ICI — the same
+    leaves its shard), with one pmax diagnostic across the mesh — the same
     pairs-parallel structure as every other view (ref: parallel_for
     over channel pairs, SpectrumDSP.cpp:83; continuous resonate,
     TransformDSP.inl:1163-1211).

@@ -8,7 +8,7 @@ history ring for windowed re-reads, plus performance counters.
 
 Re-design notes: the reference packetizes into a lock-free SPSC queue and
 wakes a dedicated consumer thread (the visualization DSP ran on CPU beside
-the audio thread). Here consumers run DSP on the TPU, so the host layer's
+the audio thread). Here consumers run DSP on the accelerator, so the host layer's
 job is only to (a) decouple the producer from consumers and (b) retain
 history. ``threaded=True`` reproduces the async-consumer-thread behavior:
 blocks are packetized at ``STREAM_PACKET_SIZE`` (ref: AudioStream<float,

@@ -6,7 +6,7 @@ Constant, carries the per-pair line-graph filter states across calls, and
 exposes a batched jitted step. Rendering (OpenGL in the reference) is out of
 scope — outputs are render-ready arrays.
 
-TPU shape conventions:
+Device shape conventions:
 * ``pairs``: the number of channel pairs analyzed in parallel (the
   reference's ``parallel_for`` over pairs, SpectrumDSP.cpp:83) — the batch
   axis.
@@ -276,10 +276,8 @@ class ResonatorSpectrumProcessor:
         they advance nothing. Returns the display results after the last
         valid chunk, [pairs, 1, K, rows, P].
 
-        Replaces the round-2 per-chunk Python dispatch loop (one ~ms
-        round trip per 1024 samples on a remote link) with one scanned
-        dispatch per tick (ref: continuous resonate,
-        TransformDSP.inl:1163-1211).
+        One scanned dispatch per tick instead of one per chunk (ref:
+        continuous resonate, TransformDSP.inl:1163-1211).
         """
         blocks = jnp.asarray(blocks, jnp.float32)
         t = blocks.shape[-2]

@@ -1,16 +1,16 @@
-"""Driver-survivability tests for bench.py's isolated runner.
+"""Survivability and device-honesty tests for bench.py's isolated runner.
 
-Round-4 postmortem: the driver's bench run timed out after ~23 min with
-ZERO stdout, so the scoreboard recorded nothing despite every config
-having been measured and persisted to disk. The contract under test:
+The contract under test:
 
-* after every config subprocess the runner prints ONE cumulative JSON
-  line (each a superset of the previous) — the driver's tail is always
-  the most complete parseable record;
+* after every config child process the runner prints ONE cumulative JSON
+  line (each a superset of the previous) — the tail is always the most
+  complete parseable record;
 * a wall-clock budget skips (and names) remaining configs instead of
   overrunning;
 * timed-out configs are named and do not kill the run;
-* scan-slope measurements carry degraded-capture metadata.
+* scan-slope measurements carry degraded-capture metadata;
+* one probe decides whether a GPU is present; without one the run fails
+  instead of measuring the CPU, and every record carries the device stamp.
 """
 
 import json
@@ -146,8 +146,8 @@ def test_aggregate_medians_and_degraded_exclusion():
         {"value": 100.0, "cfg2_x": 10.0, "on_device_step_us": 40.0},
         {"value": 300.0, "cfg2_x": 30.0, "on_device_step_us": 1000.0,
          "on_device_step_us_degraded": True},
-        {"value": 200.0, "cfg2_x": 20.0, "fft_backend": "mxu",
-         "mxu_fft": True, "elapsed_s": 99.0},
+        {"value": 200.0, "cfg2_x": 20.0, "remap_mode": "gather",
+         "some_flag": True, "elapsed_s": 99.0},
     ]
     out = agg.aggregate(runs)
     assert out["value"] == {
@@ -159,7 +159,7 @@ def test_aggregate_medians_and_degraded_exclusion():
     assert out["on_device_step_us"]["median"] == 40.0
     assert out["on_device_step_us"]["degraded_n"] == 1
     # strings, bools, and metadata keys are not measurements
-    assert "fft_backend" not in out and "mxu_fft" not in out
+    assert "remap_mode" not in out and "some_flag" not in out
     assert "elapsed_s" not in out and "on_device_step_us_degraded" not in out
     md = agg.to_markdown(out)
     assert "| value | 3 | 200.0 |" in md
@@ -192,3 +192,85 @@ def test_save_run_records_coverage(monkeypatch, tmp_path):
 
     out = agg.aggregate([record])
     assert list(out) == ["value"]
+
+
+GPU_STAMP = {
+    "platform": "gpu", "device_kind": "NVIDIA H100 80GB HBM3",
+    "device_count": 1, "gpu_name": "NVIDIA H100 80GB HBM3",
+    "power_limit": "700.00 W",
+}
+
+
+def _fake_probe(stdout="", returncode=0, stderr=""):
+    def fake_run(argv, capture_output, text, timeout):
+        assert "-c" in argv  # one child process, never jax in the parent
+        return types.SimpleNamespace(stdout=stdout, stderr=stderr, returncode=returncode)
+
+    return fake_run
+
+
+def test_probe_returns_gpu_stamp(monkeypatch):
+    monkeypatch.setattr(bench.subprocess, "run", _fake_probe(json.dumps(GPU_STAMP) + "\n"))
+    assert bench._probe_device() == GPU_STAMP
+
+
+@pytest.mark.parametrize(
+    "stdout,returncode",
+    [
+        (json.dumps(dict(GPU_STAMP, platform="cpu")) + "\n", 0),  # no card
+        ("", 1),  # the child died (e.g. backend init failed)
+        ("", 0),  # the child printed nothing
+    ],
+)
+def test_probe_refuses_without_gpu(monkeypatch, stdout, returncode):
+    calls = []
+
+    def fake_run(argv, capture_output, text, timeout):
+        calls.append(argv)
+        return types.SimpleNamespace(stdout=stdout, stderr="boom", returncode=returncode)
+
+    monkeypatch.setattr(bench.subprocess, "run", fake_run)
+    with pytest.raises(RuntimeError):
+        bench._probe_device()
+    assert len(calls) == 1  # a single check: no retries
+
+
+def test_records_carry_device_stamp(monkeypatch, capsys, tmp_path):
+    monkeypatch.setattr(bench, "PARTIAL_PATH", tmp_path / "partial.json")
+    monkeypatch.setattr(bench, "RUNS_DIR", tmp_path / "bench_runs")
+    monkeypatch.setenv("SZ_BENCH_BUDGET_S", "1e9")
+    results = {"headline": {"value": 1.0, "metric": "m", "unit": "frames/s",
+                            "vs_baseline": 0.001}}
+    monkeypatch.setattr(bench.subprocess, "run", _fake_run_factory(results))
+    bench._run_isolated(time.monotonic(), GPU_STAMP)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines() if l.strip()]
+    assert lines
+    for rec in lines:
+        for key, value in GPU_STAMP.items():
+            assert rec[key] == value
+
+
+def test_device_peaks_keyed_by_kind():
+    peaks = bench.device_peaks("NVIDIA H100 80GB HBM3")
+    assert peaks["hbm_bytes_per_s"] == 3.35e12 and peaks["f32_flops"] == 67e12
+    # an unknown card is an error, never a silent H100 default
+    with pytest.raises(KeyError):
+        bench.device_peaks("Some Other Accelerator")
+    with pytest.raises(KeyError):
+        bench.device_peaks("cpu")
+
+
+def test_bench_without_gpu_exits_nonzero(tmp_path):
+    """On the CPU the whole run fails after the one probe: exit code 1 and
+    an error record with no measured value — no CPU fallback."""
+    import os
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu", SZ_BENCH_BUDGET_S="600")
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, str(root / "bench.py")],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(tmp_path),
+    )
+    assert proc.returncode != 0
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert last["value"] == 0.0 and "no GPU" in last["error"]

@@ -167,7 +167,7 @@ def test_session_auto_enables_and_closes():
 
 
 def test_failed_dispatch_recovers_bit_exact(monkeypatch):
-    """If the ingest dispatch dies mid-sync (tunnel drop), no samples are
+    """If the ingest dispatch dies mid-sync (a device fault), no samples are
     lost: the ring re-arms from the host ring and the next sync matches."""
     import signalizer_tpu.stream.device_history as dhm
 

@@ -29,7 +29,7 @@ def test_demo_renders_all_views(tmp_path):
 
 
 def test_multichip_demo_runs():
-    proc = _run("multichip_demo.py", "--cpu")
+    proc = _run("multichip_demo.py")  # default: 8-device virtual CPU mesh (--gpu: the host GPUs)
     assert proc.returncode == 0, proc.stderr[-800:]
     assert "sharded over 8 devices" in proc.stdout
     assert "global peak diagnostic" in proc.stdout

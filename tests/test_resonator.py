@@ -279,9 +279,9 @@ def test_rsnt_phase_mode_cancellation_semantics():
 
 def test_block_plan_survives_pytree_roundtrip():
     """The host pole mirror is static aux data: tree_map / jit
-    reconstruction / checkpoint restore must not lose it (advisor
-    finding round 3: a stapled-on attribute vanished on flatten,
-    turning plan builds into refused device readbacks)."""
+    reconstruction / checkpoint restore must not lose it (a stapled-on
+    attribute vanished on flatten, turning plan builds into float32
+    readbacks of the poles)."""
     rc = make_resonator_constant(np.linspace(50, 20000, 32), FS, 512)
     rc2 = jax.tree_util.tree_map(lambda x: x, rc)
     assert rc2.host_poles is not None
@@ -289,3 +289,43 @@ def test_block_plan_survives_pytree_roundtrip():
     p2 = make_block_plan(rc2, 64)
     np.testing.assert_array_equal(np.asarray(p1.ramp), np.asarray(p2.ramp))
     np.testing.assert_array_equal(np.asarray(p1.decay), np.asarray(p2.decay))
+
+
+class _AcceleratorLeaf:
+    """A pole leaf that reports a non-CPU device, as a constant placed on
+    the GPU does; ``np.asarray`` reads it back."""
+
+    def __init__(self, data):
+        self._data = np.asarray(data)
+        self.shape = self._data.shape
+        self.dtype = self._data.dtype
+
+    def devices(self):
+        import types
+
+        return {types.SimpleNamespace(platform="gpu")}
+
+    def __array__(self, dtype=None, copy=None):
+        return self._data if dtype is None else self._data.astype(dtype)
+
+
+@pytest.mark.parametrize("block", [64, 256])
+def test_block_plan_reads_back_poles_on_accelerator(block):
+    """Without the host mirror, the plan reads the pole leaf back from
+    whatever device holds it and agrees with the mirror's plan to
+    float32 rounding of the poles."""
+    import dataclasses
+
+    rc = make_resonator_constant(np.linspace(50, 20000, 32), FS, 512)
+    bare = dataclasses.replace(
+        rc, host_poles=None, poles=_AcceleratorLeaf(np.asarray(rc.poles))
+    )
+    want = make_block_plan(rc, block)
+    got = make_block_plan(bare, block)
+    assert got.block == block
+    np.testing.assert_allclose(
+        np.asarray(got.ramp), np.asarray(want.ramp), atol=5e-5
+    )
+    np.testing.assert_allclose(
+        np.asarray(got.decay), np.asarray(want.decay), atol=5e-5
+    )

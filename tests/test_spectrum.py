@@ -604,3 +604,31 @@ def test_decay_domain_routes_spectrogram_to_linear(monkeypatch):
         jax.jit(
             lambda s, f: analyze_frames(constant, s, f, decay_domain="auto")
         ).lower(state, frames)
+
+
+@pytest.mark.parametrize("window_size", [32, 100, 2048, 16384])
+@pytest.mark.parametrize(
+    "config",
+    [
+        SpectrumChannels.LEFT,
+        SpectrumChannels.SEPARATE,
+        SpectrumChannels.MIDSIDE,
+        SpectrumChannels.COMPLEX,
+    ],
+)
+def test_fft_spectrum_across_window_sizes(window_size, config):
+    """The jnp.fft spectrum (cuFFT on the GPU) against the float64 oracle
+    from the smallest transform to the longest, batched over leading axes
+    (non-power-of-two windows zero-pad to the next transform size)."""
+    constant = _make(
+        config, BinInterpolation.LINEAR, ViewScaling.LOGARITHMIC, 128,
+        window_size=window_size,
+    )
+    rng = np.random.default_rng(window_size)
+    frames = (rng.standard_normal((2, 3, 2, window_size)) * 0.3).astype(np.float32)
+    got = np.asarray(spectrum_values(constant, jnp.asarray(frames)))
+    assert got.shape[:2] == (2, 3)
+    for i in (0, 1):
+        for j in (0, 2):
+            want = _oracle_vals(constant, frames[i, j], config, BinInterpolation.LINEAR)
+            np.testing.assert_allclose(got[i, j], want, rtol=2e-3, atol=2e-4)

@@ -1,14 +1,12 @@
-"""On-chip A/B: linear vs log-domain decay+dB at the headline geometry.
+"""On-device A/B: linear vs log-domain decay+dB at the headline geometry.
 
-Round-5 roofline (docs/ROUND5.md §8): the decay+dB stage is 1.15 µs/frame
-— 49% of the 2.33 µs headline step — and it is VPU/memory work, not MXU.
-`kernels/spectrum._log_decay_db` re-derives the stage in max-plus algebra
-(one cummax'd array instead of a two-array mul+max associative scan; log
-taken on the K-independent values; dB map affine). This tool measures the
-FULL headline step with each path active, plus the isolated stage, using
-the scan-slope/scalar-checksum regime (see bench._scan_rate).
+`kernels/spectrum._log_decay_db` re-derives the decay+dB stage in
+max-plus algebra (one cummax'd array instead of a two-array mul+max
+associative scan; log taken on the K-independent values; dB map affine).
+This tool measures the FULL headline step with each path active, plus
+the isolated stage, using the scan-slope regime (see bench._scan_rate).
 
-Run on the TPU rig (while nothing else holds the chip):
+Run on the GPU (one process on the card):
 
     python tools/decay_bench.py [--pairs 16] [--steps 128]
 """
@@ -36,10 +34,9 @@ def main() -> None:
 
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir", str(Path(__file__).parent.parent / ".jax_cache")
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from signalizer_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from bench import _scan_rate

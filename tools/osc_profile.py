@@ -1,12 +1,9 @@
 """On-device ablation profile of the oscilloscope step (cfg3 geometry).
 
 Times each component of osc_step_impl by scan-chain slope (scalar-
-checksum sync — see bench.py) to find where the ~2 ms/step goes:
+checksum sync — see bench.py) to find where the step's device time goes:
 
     python tools/osc_profile.py
-
-Used to decide whether a fused Pallas resample kernel can beat the XLA
-banded formulation (round-3 VERDICT missing #4: a winning custom kernel).
 """
 
 import pathlib
@@ -25,18 +22,15 @@ def main() -> int:
     import jax.numpy as jnp
     from jax import lax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(pathlib.Path(__file__).resolve().parent.parent / ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from signalizer_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
 
     from signalizer_tpu.core.config import OscChannels
     from signalizer_tpu.kernels.oscilloscope import (
         minmax_decimate,
         sinc_resample,
         zero_crossing_triggers,
-        _banded_resample,
     )
     from signalizer_tpu.views.oscilloscope import (
         OscilloscopeProcessor,
@@ -130,7 +124,7 @@ def main() -> int:
 
     report("step w/ nearest interp", none_body, (osc_n.state, hist_dev, jnp.float32(0.0)))
 
-    # 3. sinc resample alone (lanczos banded, a=5)
+    # 3. sinc resample alone (lanczos, a=10)
     def sinc_body(c):
         x, s, acc = c
         w = sinc_resample(x, s, step, pixels, 10)
@@ -138,16 +132,7 @@ def main() -> int:
 
     report("sinc_resample alone", sinc_body, (rows, start, jnp.float32(0.0)))
 
-    # 4. banded resample direct (no dispatch cond), narrow band
-    def banded_body(c):
-        x, s, acc = c
-        pos = s[..., None] + jnp.arange(pixels, dtype=jnp.float32) * step[..., None]
-        w = _banded_resample(x, pos, 5, 64, "lanczos")
-        return jnp.roll(x, 1, axis=-1), jnp.mod(s + 1.0, 8000.0), acc + jnp.sum(w)
-
-    report("_banded_resample (64) alone", banded_body, (rows, start, jnp.float32(0.0)))
-
-    # 5. ZC trigger alone
+    # 4. ZC trigger alone
     def trig_body(c):
         x, acc = c
         fires = zero_crossing_triggers(x[:, 0, :], 0.1)
@@ -156,7 +141,7 @@ def main() -> int:
 
     report("ZC trigger alone (16k)", trig_body, (hist_dev, jnp.float32(0.0)))
 
-    # 6. minmax decimate alone
+    # 5. minmax decimate alone
     def mm_body(c):
         x, acc = c
         lo, hi = minmax_decimate(x, pixels)

@@ -1,26 +1,22 @@
-"""A/B candidates for the display remap (interp + bin-max select) on TPU.
+"""A/B candidates for the display remap (interp + bin-max select).
 
 The production remap (kernels/spectrum.py) is a weighted tap gather
 (`_interp`) plus a scatter-based `jax.ops.segment_max` (`_binmax_mag`)
-and a static select — the TPU-native form of the reference's per-pixel
-interpolate-vs-binmax walk (ref: TransformDSP.inl:562-639). Round 2
-established that XLA's scatter pipeline beats dense Pallas
-reformulations of the *whole* display map; this tool A/Bs two narrower
-XLA-level candidates that keep the same select semantics:
+and a static select — the vectorized form of the reference's per-pixel
+interpolate-vs-binmax walk (ref: TransformDSP.inl:562-639). This tool
+A/Bs two XLA-level candidates that keep the same select semantics:
 
-* ``matmul``: the tap interpolation as one dense [nv, P] MXU matmul
+* ``matmul``: the tap interpolation as one dense [nv, P] matmul
   (weights scattered into a constant matrix at plan-build time; zero
   columns for bin-max pixels). Replaces the [.., P, taps] gather.
 * ``banded``: the segment max as a constant-index banded gather — each
   bin-max pixel's chunk {oldBin+1..bin} is a CONTIGUOUS bin range, so a
-  [P, maxband] gather + mask + max replaces the scatter. (Same
-  contiguity insight as the oscilloscope's banded resample.)
+  [P, maxband] gather + mask + max replaces the scatter.
 * ``both``: both replacements together.
 
 Exactness is asserted against the production path (same floats modulo
 matmul accumulation order; tolerance 1e-6 relative) before anything is
-timed. Timings are scan-slope with the input rotated per step and a
-scalar-checksum sync (see CLAUDE.md's measurement landmines).
+timed. Timings are scan-slope with the input rotated per step.
 
 Both candidates are ALSO wired into the production path behind
 ``SIGNALIZER_TPU_REMAP=banded|matmul|both`` (plan fields in
@@ -29,7 +25,7 @@ kernels/spectrum._remap_mag), so a measured winner is a default flip.
 Production-path equivalence is pytest-locked
 (tests/test_spectrum.py test_remap_candidates_match_production).
 
-Run on the TPU rig:
+Run on the GPU:
 
     python tools/remap_bench.py [--axis 1024] [--window 4096] [--interp linear]
 
@@ -100,10 +96,9 @@ def main() -> None:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update(
-        "jax_compilation_cache_dir", str(Path(__file__).parent.parent / ".jax_cache")
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from signalizer_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from bench import _scan_rate

@@ -5,10 +5,10 @@ with the shared device history ring (stream/device_history.py, hop-only
 uploads) against the host-path fallback (full window re-upload per view
 per tick). Same audio, same views, alternating fresh sessions.
 
-House discipline: outputs are synced on a scalar checksum folded from the
-tick's arrays (remote arrays can "block" lazily — CLAUDE.md); the feed is
-advanced every tick so no window is constant; medians over many ticks
-after a warmup that compiles every pow2 upload bucket the cadence hits.
+Outputs are synced on a scalar checksum folded from the tick's arrays;
+the feed is advanced every tick so no window is constant; medians over
+many ticks after a warmup that compiles every pow2 upload bucket the
+cadence hits.
 
 Run:  python tools/session_profile.py            (ambient platform)
       SIGNALIZER_TPU_PROFILE_TICKS=200 python tools/session_profile.py
@@ -30,10 +30,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def main() -> None:
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir", str(Path(__file__).parent.parent / ".jax_cache")
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from signalizer_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
 
     from signalizer_tpu.engine import SignalizerEngine
     from signalizer_tpu.session import AnalysisSession

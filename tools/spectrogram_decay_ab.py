@@ -1,30 +1,12 @@
-"""On-chip A/B: decay_domain routing for the spectrogram step (cfg4).
+"""On-device A/B: decay_domain routing for the spectrogram step (cfg4).
 
-Round-5 finding (docs/ROUND5.md §10): the log-domain decay+dB — a 1.48x
-win on the headline step — composes 2.8x SLOWER with a downstream
-``spectrogram_columns`` consumer at cfg4 geometry (16384-pt window,
-T=512 columns, P=1024), and the penalty is invisible to HLO structure,
-XLA cost analysis and VMEM assignment, and immune to every structural
-probe tried (optimization_barrier before the consumers, time-major
-cummax, VPU mul+sum colormap, finite sentinels). Measured 2026-08-19,
-TPU v5 lite, scan-slope scalar-checksum regime (bench._scan_rate):
-
-| variant                                           | us/frame | f/s    |
-|---------------------------------------------------|----------|--------|
-| analyze_frames alone, log decay                   | 1.859    | 538k   |
-| + colormap + peak hold (cfg4 step), log           | 5.787    | 172.8k |
-| ... with optimization_barrier before consumers    | 5.822    | 171.8k |
-| ... without the peak hold                         | 4.467    | 223.9k |
-| ... without the colormap                          | 1.852    | 539.9k |
-| colormap ALONE at [512, 1024]                     | 0.135    | --     |
-| ... time-major cummax (moveaxis) log variant      | 5.889    | 169.8k |
-| ... finite-sentinel (no -inf) log variant         | 5.881    | 170.0k |
-| ... VPU mul+sum colormap, log decay               | 5.935    | 168.5k |
-| decay_domain="linear" (production routing, fix)   | 2.159    | 474.4k |
-
-This tool reproduces the decision rows (log vs linear full step, plus
-the isolated analyze and colormap) so the routing can be re-validated
-after compiler/runtime updates:
+The spectrogram family forces ``decay_domain="linear"`` because, on the
+previous accelerator, the log-domain decay+dB composed slower with the
+downstream ``spectrogram_columns`` consumer at cfg4 geometry (16384-pt
+window, T=512 columns, P=1024) although it sped up the headline step.
+On the GPU this is not measured yet. This tool measures the decision
+rows (log vs linear full step, plus the isolated analyze and colormap)
+so the routing can be re-decided:
 
     python tools/spectrogram_decay_ab.py
 """
@@ -43,10 +25,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def main() -> None:
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir", str(Path(__file__).parent.parent / ".jax_cache")
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from signalizer_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from bench import _scan_rate
