@@ -26,6 +26,10 @@ all four devices.
 Each phase compares its outputs with the same JAX step run on the CPU
 device in this process, and its stages with the numpy oracles in
 ``tests/oracle.py`` (or the per-sample oracles below) where one exists.
+The oscilloscope's waveform and envelope are held to the oracles only,
+in each run: XLA's CPU backend evaluates the pixel positions
+``start + p * step`` with a fused multiply-add and the GPU's does not, so
+the two runs legitimately differ by one float32 rounding of a position.
 Faults the session would contain (``protected_call``) are written to a
 fresh exception log, which must stay empty; the fused all-views tick must
 serve every eligible tick. Without a GPU the script exits non-zero before
@@ -54,12 +58,7 @@ sys.path.insert(0, str(ROOT / "tests"))
 # --- parity bounds (reasons in CHANGES.md) -----------------------------------
 DISPLAY_ATOL = 2e-3  # normalized display rows, clipped to the visible [0, 1]
 U8_STEPS = 1  # spectrogram RGBA8 columns
-OSC_REL = 1e-4  # oscilloscope waveform vs the per-tap oracle, times the peak
-# GPU vs CPU runs of the same oscilloscope step: the GPU contracts
-# ``start + p * step`` into one fused multiply-add, so a pixel position can
-# differ by one float32 ulp (2^-9 samples at 16384) from the CPU's; times
-# the signal's steepest slope that moves the waveform by < 1e-3 of its peak
-OSC_XDEV_REL = 1e-3
+OSC_REL = 1e-4  # oscilloscope waveform and envelope vs the oracles, times the peak
 VS_ATOL = 1e-4  # vectorscope vertices and meters (times max(1, peak))
 RES_ATOL = 2e-4  # resonator readout
 SHARD_REL = 5e-4  # 4-device vs 1-device pipeline leaves, times max(1, peak)
@@ -140,31 +139,6 @@ def abs_scaled(got, want) -> float:
     return float(np.max(np.abs(got - want)) / max(float(np.max(np.abs(want))), 1.0))
 
 
-def envelope_band_dev(got_min, got_max, want_min, want_max) -> float:
-    """How far the min-max envelope leaves the reference band of its own
-    and the two neighbouring pixels, over the reference peak. A pixel
-    position one ulp apart can move the sample at a pixel boundary into
-    the neighbour pixel, which changes that pixel's min or max by a whole
-    sample step but keeps every value inside the neighbours' band."""
-    got_min, got_max, want_min, want_max = (
-        np.asarray(a, np.float64) for a in (got_min, got_max, want_min, want_max))
-    if got_min.shape != want_min.shape or got_max.shape != want_max.shape:
-        raise SmokeFailure(f"shape mismatch {got_min.shape} vs {want_min.shape}")
-    if not (np.all(np.isfinite(got_min)) and np.all(np.isfinite(got_max))):
-        return float("inf")
-
-    def spread(a, op):
-        pad = np.concatenate([a[..., :1], a, a[..., -1:]], axis=-1)
-        return op(np.stack([pad[..., :-2], pad[..., 1:-1], pad[..., 2:]]), axis=0)
-
-    lo = spread(want_min, np.min)
-    hi = spread(want_max, np.max)
-    out = np.maximum(np.maximum(lo - got_min, got_max - hi), 0.0)
-    out = np.maximum(out, np.maximum(lo - got_max, got_min - hi))
-    peak = max(float(np.max(np.abs(want_max))), float(np.max(np.abs(want_min))), 1e-30)
-    return float(np.max(out)) / peak if out.size else 0.0
-
-
 def display_dev(got, want) -> float:
     """max |got - want| of normalized display rows as drawn: clipped to
     [0, 1]. Below the display floor the dB map log-amplifies leakage noise
@@ -181,41 +155,6 @@ def display_dev(got, want) -> float:
 # --- per-sample numpy oracles --------------------------------------------------
 
 
-def zero_crossing_oracle(x, threshold: float) -> np.ndarray:
-    """Rising-zero-crossing state machine (ref: ZeroCrossingProcessor,
-    StreamPreprocessing.h:315-349): a crossing arms; the armed origin
-    fires when a sample from it on exceeds the threshold before the next
-    crossing re-arms. x [W] -> bool [W] fire marks at the origins."""
-    x = np.asarray(x, np.float64)
-    fires = np.zeros(len(x), bool)
-    armed = -1
-    for i in range(1, len(x)):
-        if x[i] > 0 and x[i - 1] < 0:
-            armed = i
-        if armed >= 0 and x[i] > threshold:
-            fires[armed] = True
-            armed = -1
-    return fires
-
-
-def sinc_resample_oracle(x, pos, a: int) -> np.ndarray:
-    """Per-tap windowed-sinc resample in float64 (ref: drawWavePlot
-    sampleAt<Lanczos>, OscilloscopeRendering.cpp:854-888): x [..., W],
-    pos [..., P] (batch dims broadcast) -> [..., P]."""
-    x = np.asarray(x, np.float64)
-    pos = np.asarray(pos, np.float64)
-    w = x.shape[-1]
-    taps = np.floor(pos)[..., None] + np.arange(-a + 1, a + 1)
-    t = pos[..., None] - taps
-    wts = np.where(np.abs(t) < a, np.sinc(t) * np.sinc(t / a), 0.0)
-    idx = np.clip(taps, 0, w - 1).astype(np.int64)
-    batch = np.broadcast_shapes(x.shape[:-1], pos.shape[:-1])
-    xb = np.broadcast_to(x, batch + (w,))
-    ib = np.broadcast_to(idx.reshape(idx.shape[:-2] + (-1,)), batch + (idx.shape[-2] * idx.shape[-1],))
-    g = np.take_along_axis(xb, ib, axis=-1).reshape(batch + idx.shape[-2:])
-    return np.sum(g * wts, axis=-1)
-
-
 def resonator_oracle(poles, combine, gain, x) -> np.ndarray:
     """Per-sample complex one-pole bank z = c z + x, then the windowed
     readout |sum_v comb_v z_v| * gain (ref: resonateReal +
@@ -224,6 +163,80 @@ def resonator_oracle(poles, combine, gain, x) -> np.ndarray:
     for s in np.asarray(x, np.float64):
         z = z * poles + s
     return np.abs(z @ np.asarray(combine, np.float64)) * np.asarray(gain, np.float64)
+
+
+def zero_crossing_window_start(trig, threshold: float, window: float, lookahead: int) -> np.float32:
+    """The displayed window's start in float32, from the per-sample trigger
+    oracle: the newest fire in the lookahead whose following half window
+    is complete (ref: StreamPreprocessing.h:78), the window centred on it
+    and clamped into the history; with no such fire, the newest window.
+    trig [H]."""
+    from oracle import zero_crossing_oracle
+
+    f32 = np.float32
+    h = len(trig)
+    la = min(lookahead, h)
+    window = f32(min(window, h))
+    fires = zero_crossing_oracle(trig[h - la :], threshold)
+    complete = f32(h - la) + np.arange(la, dtype=f32) <= f32(h) - window * f32(0.5)
+    cand = np.flatnonzero(fires & complete)
+    if not cand.size:
+        return f32(f32(h) - window)
+    start = f32(h - la + cand[-1]) - (window - f32(1.0)) * f32(0.5)
+    return f32(np.clip(start, f32(0.0), f32(h) - window))
+
+
+def osc_frame_vs_oracle(constant, rows, frame: dict, window: float, env_os: int):
+    """One zero-crossing, Lanczos, separate-rows oscilloscope frame against
+    the oracles. The waveform is held to the per-tap resample and the
+    envelope to the exact min and max of the samples each pixel spans, at
+    the positions start + p * step that the trigger oracle gives. Those
+    positions have two correctly rounded float32 evaluations (with or
+    without a fused multiply-add, ``oracle.display_positions``); XLA's CPU
+    backend fuses and the GPU's does not, so the whole frame is held to
+    the one it fits best. rows [pairs, R, H] (the history), frame with
+    waveform, envelope_min/max [pairs, R, P] and gain [pairs]. Returns
+    (fused, waveform deviation, envelope deviation), over the peak."""
+    from oracle import OSC_LANCZOS_A as a
+    from oracle import display_positions, minmax_envelope_oracle, resample_oracle
+
+    rows = np.asarray(rows, np.float32)
+    pairs, nrows, h = rows.shape
+    pixels = frame["waveform"].shape[-1]
+    gain = np.asarray(frame["gain"], np.float64)[:, None, None]
+    trig = rows[:, int(constant.trigger_channel) % nrows]
+    start = np.array([zero_crossing_window_start(t, float(constant.threshold), window, constant.lookahead)
+                      for t in trig], np.float32)
+    step = np.full(pairs, (np.float32(min(window, h)) - np.float32(1.0)) / np.float32(max(pixels - 1, 1)))
+    best = None
+    for fused in (False, True):
+        pos = np.clip(display_positions(start, step, pixels, fused), -(a + 1.0), h - 1.0 + a)
+        wave_dev = rel_to_peak(frame["waveform"], resample_oracle(rows, pos[:, None], "lanczos", a) * gain)
+        dense = display_positions(start, step / np.float32(env_os), pixels * env_os, fused)
+        dense = np.clip(dense, -1.0, float(h)).reshape(pairs, 1, pixels, env_os)
+        lo, hi = minmax_envelope_oracle(rows, dense[..., 0], dense[..., -1])
+        env_dev = max(rel_to_peak(frame["envelope_min"], lo * gain), rel_to_peak(frame["envelope_max"], hi * gain))
+        if best is None or max(wave_dev, env_dev) < max(best[1:]):
+            best = (fused, wave_dev, env_dev)
+    return best
+
+
+def check_osc_frames(chk: Checks, name: str, constant, frames, window: float, env_os: int) -> str:
+    """osc_frame_vs_oracle over (rows, frame) pairs; returns which
+    position evaluation the frames fit, for the log."""
+    from signalizer_tpu.core.config import OscChannels
+    from signalizer_tpu.views.oscilloscope import SubSampleInterpolation, TriggerMode
+
+    chk.true(f"{name}.osc_config", constant.trigger_mode == TriggerMode.ZERO_CROSSING
+             and constant.interpolation == SubSampleInterpolation.LANCZOS
+             and constant.channel_mode == OscChannels.SEPARATE)
+    used = {False: 0, True: 0}
+    for rows, frame in frames:
+        fused, wave_dev, env_dev = osc_frame_vs_oracle(constant, rows, frame, window, env_os)
+        used[fused] += 1
+        chk.bound(f"{name}.osc_waveform_vs_oracle", wave_dev, OSC_REL)
+        chk.bound(f"{name}.osc_envelope_vs_oracle", env_dev, OSC_REL)
+    return f"{used[False]} frames unfused, {used[True]} fused"
 
 
 def make_audio(n: int, sample_rate: float, seed: int, channels: int = 2) -> np.ndarray:
@@ -276,7 +289,8 @@ def drive_session(
 ):
     """Feed ``audio`` [2, n] through engine + session on ``device`` in
     256-sample packets, ticking every 800 samples. Returns (per-tick
-    snapshots, info)."""
+    snapshots, info); each snapshot keeps the history the oscilloscope
+    read, for its oracle."""
     import jax
 
     from signalizer_tpu.core.config import SpectrumChannels
@@ -308,6 +322,9 @@ def drive_session(
         else:
             sp.window_size.set_transformed(keep)
         sess.reconfigure("spectrum")
+        oproc = sess.processor("oscilloscope")
+        osc_window = float(oproc.effective_window_samples(sync_device=False))
+        osc_h = sess._osc_history_len()  # the history the oscilloscope reads
         t0 = time.perf_counter()
         since = 0
         tick_s = []
@@ -317,6 +334,7 @@ def drive_session(
             since += blk.shape[1]
             if since >= TICK_SAMPLES:
                 since -= TICK_SAMPLES
+                osc_hist = np.asarray(eng.get_presentation_history(osc_h), np.float32)[None, :2]
                 ta = time.perf_counter()
                 fr = sess.tick()
                 snap = {
@@ -325,6 +343,7 @@ def drive_session(
                     "vs": _tree_np(fr.vectorscope),
                     "cols": None if fr.spectrogram_columns is None else np.asarray(fr.spectrogram_columns),
                     "line_graph": fr.line_graph is not None,
+                    "osc_hist": osc_hist,
                 }
                 tick_s.append(time.perf_counter() - ta)
                 ticks.append(snap)
@@ -333,7 +352,9 @@ def drive_session(
             "tick_p50_ms": float(np.median(tick_s) * 1e3) if tick_s else 0.0,
             "fused": sess.fused_tick_count,
             "spectrum_proc": sess.processor("spectrum"),
-            "osc_proc": sess.processor("oscilloscope"),
+            "osc_proc": oproc,
+            "osc_window": osc_window,
+            "osc_env_os": oproc._prep_step(osc_h, 0.0, 1)[4],
             "history": eng.get_presentation_history(
                 min(history, max(spectrogram_window, spectrum_window, 16384))
             ),
@@ -354,12 +375,9 @@ def compare_sessions(chk: Checks, phase: str, got, want) -> None:
             chk.bound(f"{phase}.spectrum_display", display_dev(g["spectrum"], w["spectrum"]), bound)
         if g["cols"] is not None and w["cols"] is not None:
             chk.bound(f"{phase}.spectrogram_rgba8_steps", u8_max_step(g["cols"], w["cols"]), U8_STEPS)
-        if "waveform" in w["osc"]:
-            go, wo = g["osc"], w["osc"]
-            chk.bound(f"{phase}.osc_waveform", rel_to_peak(go["waveform"], wo["waveform"]), OSC_XDEV_REL)
-            chk.bound(f"{phase}.osc_envelope_band", envelope_band_dev(
-                go["envelope_min"], go["envelope_max"], wo["envelope_min"], wo["envelope_max"]), OSC_REL)
-            chk.bound(f"{phase}.osc_gain", rel_to_peak(go["gain"], wo["gain"]), OSC_REL)
+        # waveform and envelope: each run against the oracle (phase_session)
+        if "gain" in w["osc"]:
+            chk.bound(f"{phase}.osc_gain", rel_to_peak(g["osc"]["gain"], w["osc"]["gain"]), OSC_REL)
         if "colours" in w["osc"]:
             chk.bound(f"{phase}.osc_colours", abs_scaled(g["osc"]["colours"], w["osc"]["colours"]), OSC_REL)
         if "trigger_found" in w["osc"]:
@@ -416,12 +434,13 @@ def spectrum_oracle_check(chk: Checks, phase: str, device, constant, frames) -> 
 
 def osc_oracle_checks(chk: Checks, phase: str, device, rows, window: float, pixels: int,
                       lookahead: int, seed: int) -> None:
-    """Trigger fire marks (exact) and the Lanczos resample (relative to
-    the peak) on ``device`` against the per-sample numpy oracles.
-    rows [pairs, R, H]."""
+    """Trigger fire marks (exact) and the Lanczos resample alone (relative
+    to the peak, at the evaluation of its positions that it fits) on
+    ``device`` against the per-sample numpy oracles. rows [pairs, R, H]."""
     import jax
     import jax.numpy as jnp
 
+    from oracle import display_positions, resample_oracle, zero_crossing_oracle
     from signalizer_tpu.kernels.oscilloscope import (
         INTERPOLATION_KERNEL_SIZE,
         sinc_resample,
@@ -443,10 +462,11 @@ def osc_oracle_checks(chk: Checks, phase: str, device, rows, window: float, pixe
                      f"threshold {thr}: {int(np.sum(fires != want))} marks differ")
         wave = np.asarray(jax.jit(sinc_resample, static_argnums=3)(
             jnp.asarray(rows), jnp.asarray(start), jnp.asarray(step), pixels))
-    p = np.arange(pixels, dtype=np.float32)
     a = INTERPOLATION_KERNEL_SIZE
-    pos = np.clip(start[:, :, None] + p * step[:, :, None], -(a + 1.0), h - 1.0 + a)[:, 0][:, None, :]
-    chk.bound(f"{phase}.resample_vs_oracle", rel_to_peak(wave, sinc_resample_oracle(rows, pos, a)), OSC_REL)
+    dev = min(rel_to_peak(wave, resample_oracle(
+        rows, np.clip(display_positions(start, step, pixels, fused), -(a + 1.0), h - 1.0 + a), "lanczos", a))
+        for fused in (False, True))
+    chk.bound(f"{phase}.resample_vs_oracle", dev, OSC_REL)
 
 
 def resonator_oracle_check(chk: Checks, phase: str, device, res, x) -> None:
@@ -500,6 +520,10 @@ def phase_session(devs: Devices, chk: Checks, *, preset: Optional[str] = None, s
     chk.true(f"{phase}.all_views", all(t["osc"] and t["vs"] and t["cols"] is not None for t in got))
     chk.true(f"{phase}.spectrum_served", len(fresh) >= n_ticks - 2, f"{len(fresh)}/{n_ticks}")
     compare_sessions(chk, phase, got, want)
+    oc = info["osc_proc"].constant
+    fits = {name: check_osc_frames(chk, phase, oc, [(t["osc_hist"], t["osc"]) for t in run if t["osc"]],
+                                   info["osc_window"], info["osc_env_os"])
+            for name, run in (("device", got), ("cpu", want))}
 
     proc = info["spectrum_proc"]
     hist = np.asarray(info["history"], np.float32)
@@ -517,7 +541,8 @@ def phase_session(devs: Devices, chk: Checks, *, preset: Optional[str] = None, s
                           lookahead=8192, seed=3)
         lissajous_oracle_check(chk, phase, devs.accel, hist[:2, -4096:])
     out(f"phase {phase}: {n_ticks} ticks, fused {info['fused']}, host tick p50 "
-        f"{info['tick_p50_ms']:.3f} ms, wall {info['wall_s']:.1f} s")
+        f"{info['tick_p50_ms']:.3f} ms, wall {info['wall_s']:.1f} s; oscilloscope positions: "
+        f"device {fits['device']}, cpu {fits['cpu']}")
     return {"ticks": n_ticks, "fused": info["fused"]}
 
 
@@ -551,22 +576,23 @@ def phase_osc(devs: Devices, chk: Checks, *, pairs: int = 16, pixels: int = 8192
             t0 = time.perf_counter()
             for s in range(steps):
                 hist = audio[:, :, (s + 1) * hop : (s + 1) * hop + history]
-                frames.append(_tree_np(proc.process(hist, new_samples=hop)))
-            return frames, time.perf_counter() - t0
+                frames.append((hist, _tree_np(proc.process(hist, new_samples=hop))))
+            return frames, time.perf_counter() - t0, proc
 
-    got, wall = run(devs.accel)
-    want, _ = run(devs.cpu)
-    for g, w in zip(got, want):
-        chk.bound("C.osc_waveform", rel_to_peak(g["waveform"], w["waveform"]), OSC_XDEV_REL)
-        chk.bound("C.osc_envelope_band", envelope_band_dev(
-            g["envelope_min"], g["envelope_max"], w["envelope_min"], w["envelope_max"]), OSC_REL)
+    got, wall, proc = run(devs.accel)
+    want, _, _ = run(devs.cpu)
+    env_os = proc._prep_step(history, 0.0, hop)[4]
+    fits = {name: check_osc_frames(chk, "C", proc.constant, frames, window, env_os)
+            for name, frames in (("device", got), ("cpu", want))}
+    for (_, g), (_, w) in zip(got, want):
         chk.bound("C.osc_gain", rel_to_peak(g["gain"], w["gain"]), OSC_REL)
         chk.true("C.trigger_found", np.array_equal(g["trigger_found"], w["trigger_found"]))
         chk.true("C.shape", g["waveform"].shape == (pairs, 2, pixels), str(g["waveform"].shape))
     last = audio[:, :, steps * hop : steps * hop + history]
     osc_oracle_checks(chk, "C", devs.accel, last, window=window, pixels=pixels,
                       lookahead=lookahead, seed=4)
-    out(f"phase C: {steps} steps of {pairs} pairs x 2 rows x {pixels} px, wall {wall:.2f} s")
+    out(f"phase C: {steps} steps of {pairs} pairs x 2 rows x {pixels} px, wall {wall:.2f} s; "
+        f"positions: device {fits['device']}, cpu {fits['cpu']}")
     return {"steps": steps}
 
 

@@ -104,11 +104,7 @@ def run_fused_tick(session, dh, new_samples: int, transport: float):
         return None
     h = dh.history
     spec_w = sproc.constant.window_size
-    # oscilloscope history need: same pow2 bucketing as the per-view path
-    cap = session.engine.presentation_output.info.audio_history_capacity
-    win = float(oproc.effective_window_samples(sync_device=False))
-    need = max(16384, 1 << int(np.ceil(np.log2(max(2.0 * win, 1.0)))))
-    osc_n = min(need, cap)
+    osc_n = session._osc_history_len()
     vs_w = session._vs_window()
     if spec_w > h or osc_n > h or vs_w > h:
         return None

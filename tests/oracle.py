@@ -209,3 +209,94 @@ def peak_decay_oracle(state0, xs, pole):
         state = np.maximum(pole * state, x)
         outs.append(state.copy())
     return np.stack(outs), state
+
+
+# ---------------------------------------------------------------------------
+# oscilloscope: trigger, display positions, resample, min-max envelope
+# ---------------------------------------------------------------------------
+
+OSC_LANCZOS_A = 10  # ref: OscilloscopeParameters.h:47 (kernel size 10)
+
+
+def zero_crossing_oracle(x, threshold: float) -> np.ndarray:
+    """Rising-zero-crossing state machine (ref: ZeroCrossingProcessor,
+    StreamPreprocessing.h:315-349): a crossing arms; the armed origin
+    fires once a sample from it on exceeds the threshold. x [W] -> bool
+    [W] fire marks at the origins."""
+    x = np.asarray(x, np.float64)
+    fires = np.zeros(len(x), bool)
+    armed = False
+    origin = 0
+    for i in range(1, len(x)):
+        if x[i] > 0 and x[i - 1] < 0:
+            armed = True
+            origin = i
+        if armed and x[i] > threshold:
+            armed = False
+            fires[origin] = True
+    return fires
+
+
+def display_positions(start, step, num_out: int, fused: bool) -> np.ndarray:
+    """Pixel p's source position ``start + p * step`` as float32 evaluates
+    it: ``fused`` rounds once (a fused multiply-add), otherwise the product
+    is rounded before the add. Both are correctly rounded evaluations of
+    the same expression; a compiler may emit either. start, step [...]
+    -> [..., num_out] float32."""
+    start = np.asarray(start, np.float32)[..., None]
+    step = np.asarray(step, np.float32)[..., None]
+    p = np.arange(num_out, dtype=np.float32)
+    if fused:
+        return (start.astype(np.float64) + p.astype(np.float64) * step.astype(np.float64)).astype(np.float32)
+    return start + p * step
+
+
+def resample_oracle(x, pos, kind: str = "lanczos", a: int = OSC_LANCZOS_A) -> np.ndarray:
+    """Per-tap display resample in float64 (ref: drawWavePlot's sampleAt
+    loops, OscilloscopeRendering.cpp:854-888): pixel value = sum over the
+    taps around ``pos`` of weight * sample, taps clamped to the frame.
+    kind: "lanczos" (2a windowed-sinc taps), "linear" (2 taps) or
+    "nearest" (floor(pos + 0.5)). x [..., W], pos [..., P] with batch dims
+    broadcasting -> [..., P]."""
+    x = np.asarray(x, np.float64)
+    pos = np.asarray(pos, np.float64)
+    w = x.shape[-1]
+    if kind == "nearest":
+        taps = np.floor(pos + 0.5)[..., None]
+        wts = np.ones_like(taps)
+    else:
+        half = a if kind == "lanczos" else 1
+        taps = np.floor(pos)[..., None] + np.arange(-half + 1, half + 1)
+        t = pos[..., None] - taps
+        if kind == "lanczos":
+            wts = np.where(np.abs(t) < a, np.sinc(t) * np.sinc(t / a), 0.0)
+        elif kind == "linear":
+            wts = np.maximum(0.0, 1.0 - np.abs(t))
+        else:
+            raise ValueError(kind)
+    g = _take_last(x, np.clip(taps, 0, w - 1).astype(np.int64))
+    return np.sum(g * wts, axis=-1)
+
+
+def minmax_envelope_oracle(x, first, last):
+    """Exact min and max of the source samples from the one nearest to
+    ``first`` to the one nearest to ``last`` (a pixel's first and last
+    sampled positions), clamped to the frame. x [..., W], first/last
+    [..., P] with batch dims broadcasting -> (min, max) [..., P]."""
+    x = np.asarray(x, np.float64)
+    w = x.shape[-1]
+    lo = np.clip(np.floor(np.asarray(first, np.float64) + 0.5), 0, w - 1).astype(np.int64)
+    hi = np.clip(np.floor(np.asarray(last, np.float64) + 0.5), 0, w - 1).astype(np.int64)
+    span = int(np.max(hi - lo)) + 1 if lo.size else 1
+    idx = lo[..., None] + np.arange(span)
+    inside = idx <= hi[..., None]
+    g = _take_last(x, np.minimum(idx, w - 1))
+    return np.where(inside, g, np.inf).min(-1), np.where(inside, g, -np.inf).max(-1)
+
+
+def _take_last(x, idx):
+    """x [..., W] at idx [..., P, K] -> [..., P, K]; batch dims broadcast."""
+    batch = np.broadcast_shapes(x.shape[:-1], idx.shape[:-2])
+    flat = np.broadcast_to(idx.reshape(idx.shape[:-2] + (-1,)), batch + (idx.shape[-2] * idx.shape[-1],))
+    g = np.take_along_axis(np.broadcast_to(x, batch + x.shape[-1:]), flat, axis=-1)
+    return g.reshape(batch + idx.shape[-2:])

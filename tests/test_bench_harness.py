@@ -260,6 +260,13 @@ def test_device_peaks_keyed_by_kind():
         bench.device_peaks("cpu")
 
 
+@pytest.mark.parametrize("limit_w,below", [(700.0, False), (400.0, True), (None, True)])
+def test_peak_shares_flagged_below_rated_power(limit_w, below):
+    note = bench.peak_share_note(bench.device_peaks("NVIDIA H100 80GB HBM3"), limit_w)
+    assert note == {"power_limit_w": limit_w, "peaks_rated_at_w": 700.0,
+                    "shares_below_rated_power": below}
+
+
 def test_bench_without_gpu_exits_nonzero(tmp_path):
     """On the CPU the whole run fails after the one probe: exit code 1 and
     an error record with no measured value — no CPU fallback."""
